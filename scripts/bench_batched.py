@@ -61,7 +61,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+
+    enable_compile_cache()
 
     from sdpcutsel_tpu.cuts.enumerate import combinations_table
     from sdpcutsel_tpu.instances import generate_spar

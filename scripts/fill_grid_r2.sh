@@ -1,6 +1,5 @@
 #!/bin/bash
-# Round-2 continuation of the 120-name BoxQP grid fill (SURVEY.md §0.1 / R8,
-# VERDICT item 4).  Breadth-first: prioritize NEW instances (neural +
+# Round-2 continuation of the 120-name BoxQP grid fill (SURVEY.md §0.1 / R8).  Breadth-first: prioritize NEW instances (neural +
 # feasibility — the pair that confirms the paper's ordering per instance)
 # over the random control, which is already measured on 42 cells at n<=40.
 # The incremental runner skips completed (instance, strategy, k) cells, so

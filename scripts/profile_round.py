@@ -16,7 +16,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
 
 def main():
@@ -33,6 +32,10 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import dataclasses
+
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

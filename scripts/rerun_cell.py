@@ -33,7 +33,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from sdpcutsel_tpu.bench.suite import instance_gap_closed
     from sdpcutsel_tpu.config import (

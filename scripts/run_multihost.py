@@ -1,18 +1,22 @@
 """Multi-host sharded solve entry point (P3 bring-up, SURVEY.md section 5.8).
 
-Every participating host runs this script with the same arguments plus its
-own --process-id; the hosts join one JAX runtime, form a ('data' x 'cand')
-mesh whose 'data' axis spans DCN (parallel/mesh.py), and run the production
+One process per host, each driving all of that host's GPUs.  Every host runs
+this script with the same arguments plus its own --process-id; the processes
+join one JAX runtime (parallel/distributed.py), form a ('data' x 'cand') mesh
+whose 'data' axis spans the hosts (parallel/mesh.py), and run the production
 sharded round step (parallel/round.py) for --rounds rounds over an instance
 batch sharded across hosts.  Process 0 prints one JSON line with certified
 f64 bounds.
 
-On a TPU pod slice, coordinator/process args auto-detect — just run:
+Two GPU hosts (process 0's host reachable as host0):
 
-    python scripts/run_multihost.py --data 2 --cand 4 --rounds 5
+    python scripts/run_multihost.py --coordinator host0:29871 \
+        --num-processes 2 --process-id 0 --data 2 --cand 4 --rounds 5
+    python scripts/run_multihost.py --coordinator host0:29871 \
+        --num-processes 2 --process-id 1 --data 2 --cand 4 --rounds 5
 
-Off-pod proof (two local CPU processes, gloo collectives, 2x4 virtual mesh —
-what tests/test_multihost.py automates):
+Without a cluster (two local CPU processes, gloo collectives, 2x4 virtual
+mesh — what tests/test_multihost.py automates):
 
     python scripts/run_multihost.py --cpu --local-devices 4 \
         --coordinator 127.0.0.1:29871 --num-processes 2 --process-id 0 ... &
@@ -34,7 +38,7 @@ def main():
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--local-devices", type=int, default=None,
-                    help="virtual CPU devices per process (off-pod testing)")
+                    help="virtual CPU devices per process (--cpu testing)")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--n", type=int, default=12)
     ap.add_argument("--batch", type=int, default=4)
@@ -58,7 +62,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from sdpcutsel_tpu.parallel import distributed as dist
 
@@ -100,7 +106,7 @@ def main():
 
     step = make_sharded_round_step(mesh, lp_iters=args.lp_iters,
                                    sel_size=args.sel_size,
-                                   strategy=args.strategy, use_fused=False)
+                                   strategy=args.strategy)
     info = None
     for _ in range(args.rounds):
         state, info = step(state, table, valid)

@@ -1,4 +1,4 @@
-"""QCQP parity harness: TPU CutSolverQCQP vs the CPU replica
+"""QCQP parity harness: JAX CutSolverQCQP vs the CPU replica
 (baseline/cpu_reference_qcqp.py) on the same instance / strategy / k /
 sel_size / rounds — the sparse-path companion of scripts/run_parity.py.
 
@@ -36,14 +36,14 @@ def main():
     ap.add_argument("--out", default="results/qcqp_parity.jsonl")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--sel-gate", default=None,
-                    help="CutConfig.sel_gate for the TPU side (default: the "
+                    help="CutConfig.sel_gate for the JAX side (default: the "
                          "config default — 'residual'); 'cooldown' or "
                          "'none' to compare gate mechanisms")
     ap.add_argument("--cooldown", type=int, default=0,
-                    help="CutConfig.sel_cooldown for the TPU side (only "
+                    help="CutConfig.sel_cooldown for the JAX side (only "
                          "meaningful with --sel-gate cooldown)")
     ap.add_argument("--steer-eps", type=float, default=0.0,
-                    help="vertex steering for the TPU scoring point "
+                    help="vertex steering for the JAX scoring point "
                          "(LoopConfig.steer_eps; see qcqp/solver.py)")
     ap.add_argument("--diversity-alpha", type=float, default=0.0,
                     help="support-diverse selection penalty (ops/topk.py "
@@ -55,7 +55,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from sdpcutsel_tpu.baseline.cpu_reference_qcqp import cpu_cut_select_qcqp
@@ -86,8 +88,8 @@ def main():
                 cliques, _ = chordal_decomposition(
                     inst.n, inst.sparsity_graph())
                 table = jnp.asarray(clique_candidates(cliques, args.k))
-                # identical gated ranking on BOTH stacks (ADVICE r3): the
-                # TPU solver gates neural selection on cut-emission
+                # identical gated ranking on BOTH stacks: the
+                # JAX solver gates neural selection on cut-emission
                 # violation (combined=True, gate_tol=viol_tol); the replica
                 # must rank with the same rule or the cells measure the
                 # selection fix rather than stack parity
@@ -128,38 +130,38 @@ def main():
             )
             t0 = time.perf_counter()
             out = CutSolverQCQP(inst, cfg).run(args.rounds)
-            tpu_t = time.perf_counter() - t0
-            tpu_bounds = [h.bound for h in out]
+            jax_t = time.perf_counter() - t0
+            jax_bounds = [h.bound for h in out]
 
             mc, sdp = denoms.get(name, (rep_bounds[0], None))
             if sdp is not None:
                 gd = lambda b: max(0.0, min(1.0, (mc - b) / max(mc - sdp, 1e-12)))
-                rep_final, tpu_final = gd(rep_bounds[-1]), gd(tpu_bounds[-1])
-                ratio = tpu_final / max(rep_final, 1e-12)
+                rep_final, jax_final = gd(rep_bounds[-1]), gd(jax_bounds[-1])
+                ratio = jax_final / max(rep_final, 1e-12)
             else:
                 rep_impr = rep_bounds[0] - rep_bounds[-1]
-                tpu_impr = tpu_bounds[0] - tpu_bounds[-1]
-                rep_final = tpu_final = None
-                ratio = tpu_impr / max(rep_impr, 1e-12)
+                jax_impr = jax_bounds[0] - jax_bounds[-1]
+                rep_final = jax_final = None
+                ratio = jax_impr / max(rep_impr, 1e-12)
             rec = {
                 "instance": name, "strategy": strat, "k": args.k,
                 "sel_size": args.sel_size, "rounds": args.rounds,
-                "replica_bounds": rep_bounds, "tpu_bounds": tpu_bounds,
-                "replica_gap_closed": rep_final, "tpu_gap_closed": tpu_final,
-                "ratio": ratio, "replica_wall_s": rep_t, "tpu_wall_s": tpu_t,
-                "tpu_diversity_alpha": args.diversity_alpha,
-                "tpu_backend": jax.default_backend(),
-                "tpu_polish_iters": args.polish_iters,
-                "tpu_steer_eps": args.steer_eps,
-                "tpu_sel_gate": args.sel_gate or CutConfig().sel_gate,
-                "tpu_sel_cooldown": args.cooldown,
+                "replica_bounds": rep_bounds, "jax_bounds": jax_bounds,
+                "replica_gap_closed": rep_final, "jax_gap_closed": jax_final,
+                "ratio": ratio, "replica_wall_s": rep_t, "jax_wall_s": jax_t,
+                "jax_diversity_alpha": args.diversity_alpha,
+                "jax_backend": jax.default_backend(),
+                "jax_polish_iters": args.polish_iters,
+                "jax_steer_eps": args.steer_eps,
+                "jax_sel_gate": args.sel_gate or CutConfig().sel_gate,
+                "jax_sel_cooldown": args.cooldown,
                 "ts": time.time(),
             }
             os.makedirs(os.path.dirname(args.out), exist_ok=True)
             with open(args.out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
             print(f"[qcqp-parity] {name} {strat}: ratio={ratio:.3f} "
-                  f"replica={rep_bounds[-1]:.4f} tpu={tpu_bounds[-1]:.4f}",
+                  f"replica={rep_bounds[-1]:.4f} jax={jax_bounds[-1]:.4f}",
                   flush=True)
 
 

@@ -40,7 +40,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+
+    enable_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     from sdpcutsel_tpu.config import (
@@ -76,7 +79,7 @@ def main():
             n, d, m, seed = (int(v) for v in spec.split("-"))
             inst = generate_qcqp(n, d, m, seed)
         # Registry miss -> certified sandwich with the validated settings,
-        # persisted with sdp_rel_width (ADVICE r4 #1: the old fallback ran a
+        # persisted with sdp_rel_width (the old fallback ran a
         # loose, never-saved eigencut stall that inflated gap-closed).
         mc, sdp = ensure_certified_bounds(
             inst, reg_path, None, max_rounds=args.sdp_max_rounds)

@@ -46,7 +46,7 @@ def main():
     ap.add_argument("--max-cells", type=int, default=0,
                     help="stop after N new cells (0 = unlimited); lets runs "
                          "exit cleanly inside an external time budget instead "
-                         "of being killed mid-TPU-dispatch")
+                         "of being killed mid-dispatch")
     args = ap.parse_args()
 
     if args.cpu:
@@ -55,7 +55,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+
+    enable_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     from sdpcutsel_tpu.bench.suite import instance_gap_closed

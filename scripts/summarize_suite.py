@@ -31,7 +31,7 @@ def load(path, registry="data/boxqp/bounds.json"):
                 continue
             if r.get("k") is None:
                 # legacy rows predating config logging were moved to
-                # suite_legacy_knone.jsonl (VERDICT r4 weak #6); reject any
+                # suite_legacy_knone.jsonl; reject any
                 # stragglers rather than letting them form a shadow cell
                 # space next to the keyed cells
                 continue

@@ -1,5 +1,5 @@
 """Validate (and extend) the QCQP SDP-bound registry — the sparse-path
-companion of validate_sdp_bounds.py (VERDICT r3 next #5: the QCQP story
+companion of validate_sdp_bounds.py (the QCQP story
 needs the same gap-closed rigor as BoxQP).
 
 For each named instance:
@@ -14,7 +14,7 @@ For each named instance:
 
 Usage:
     python scripts/validate_qcqp_bounds.py --names qcqpband050-4-13-1 --cpu
-    python scripts/validate_qcqp_bounds.py   # whole registry (TPU for ub)
+    python scripts/validate_qcqp_bounds.py   # whole registry (GPU for ub)
 """
 
 import argparse
@@ -45,7 +45,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from sdpcutsel_tpu.config import LPConfig
     from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp

@@ -1,4 +1,4 @@
-"""Validate the SDP-bound registry (VERDICT r1 item 6, r3 next-round #1).
+"""Validate the SDP-bound registry.
 
 For each instance in data/boxqp/bounds.json (or the names given), sandwich
 the SDP value and record into the registry entry:
@@ -10,7 +10,7 @@ the SDP value and record into the registry entry:
     sdp_ok        — registry value lies in [lower - tol, upper + tol]
 
 Two-phase economics: the BM lower bound costs seconds on CPU; the in-out
-eigencut UPPER bound costs minutes on TPU.  So the lower bound is always
+eigencut UPPER bound costs minutes on the accelerator.  So the lower bound is always
 recomputed, and the upper bound is re-run (with the BM point as the in-out
 anchor — see sdp_relaxation_bound) only when the registry value is wider
 than --rel-target above the fresh lower bound.  Both the fresh and registry
@@ -18,7 +18,7 @@ upper bounds are valid, so the min is kept.
 
 Usage:
     python scripts/validate_sdp_bounds.py --names spar020-100-1 --cpu
-    python scripts/validate_sdp_bounds.py --min-n 80 --max-n 125   # TPU
+    python scripts/validate_sdp_bounds.py --min-n 80 --max-n 125   # GPU
     python scripts/validate_sdp_bounds.py --lb-only --max-n 125 --cpu
 """
 
@@ -30,7 +30,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# Locked read-merge-write lives in the package now (ADVICE r4 #2: the old
+# Locked read-merge-write lives in the package now (the old
 # in-script version crashed on a first-ever entry when bounds.json did not
 # exist yet); re-exported here for validate_qcqp_bounds.py and older callers.
 from sdpcutsel_tpu.utils.registry import update_registry  # noqa: E402,F401
@@ -59,7 +59,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from sdpcutsel_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from sdpcutsel_tpu.config import LPConfig
     from sdpcutsel_tpu.instances import load_or_generate

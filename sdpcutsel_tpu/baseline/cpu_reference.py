@@ -6,11 +6,11 @@ mount was empty, so this replica — built from the published algorithm — IS t
 measured baseline that parity and speedups are quoted against, see SURVEY.md
 section 6 and BASELINE.md).
 
-Intentionally "reference-shaped", NOT TPU-shaped: per-candidate Python/numpy
+Intentionally "reference-shaped", NOT accelerator-shaped: per-candidate Python/numpy
 eigendecompositions, explicit LP rows, simplex re-solves.  Used for
   * parity targets: gap closed per round on each instance,
   * the CPU scoring-throughput baseline for bench.py,
-  * cross-checking the TPU loop on small instances in tests.
+  * cross-checking the JAX loop on small instances in tests.
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ def _diverse_select(scores, table, sel_size: int, alpha: float, n: int):
     (identical math: pick argmax(score - alpha * occurrence-count penalty),
     update per-index counts, repeat; first-max tie-breaking like argmax on
     both stacks).  Ported to the replica so feasibility parity can be
-    measured like-for-like (VERDICT r4 next #7: the TPU's tie-breaking is a
-    selection-rule choice, not TPU-specific machinery — the replica gets the
+    measured like-for-like (the JAX build's tie-breaking is a
+    selection-rule choice, not device-specific machinery — the replica gets the
     same host-side rule and the 'divergent' cells collapse to real parity)."""
     sc = scores.astype(np.float64).copy()
     counts = np.zeros(n)

@@ -6,13 +6,13 @@ loop.  The reference's QCQP solver linearizes each quadratic constraint
 1/2 <Qi, X> + ci'x <= bi as a static LP row and restricts the eigencut
 candidates to the <=k subsets of the maximal cliques of the chordal
 extension of the aggregate sparsity graph (chompack's role, here
-qcqp/chordal.py — shared host-side preprocessing, so replica and TPU build
+qcqp/chordal.py — shared host-side preprocessing, so replica and JAX build
 rank the IDENTICAL candidate table).
 
 Reference-shaped on purpose: explicit sparse LP rows, HiGHS re-solve from
 scratch each round, per-candidate LAPACK eigendecompositions.  Used for
-  * QCQP parity targets (gap closed per round vs the TPU CutSolverQCQP),
-  * cross-checking the TPU QCQP loop in tests.
+  * QCQP parity targets (gap closed per round vs the JAX CutSolverQCQP),
+  * cross-checking the JAX QCQP loop in tests.
 """
 
 from __future__ import annotations

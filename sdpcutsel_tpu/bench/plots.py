@@ -120,28 +120,28 @@ def plot_instance_time(name, recs, out_dir):
     return True
 
 
-def plot_tpu_vs_replica_time(name, tpu_rec, timing_rec, out_dir):
-    """TPU build vs CPU replica, % gap closed against WALL-CLOCK, one large-n
-    instance per figure (VERDICT round-1 item 9: the paper's second axis
-    anchored against the reference stack's own timing).  The replica record
+def plot_jax_vs_replica_time(name, jax_rec, timing_rec, out_dir):
+    """JAX build vs CPU replica, % gap closed against WALL-CLOCK, one large-n
+    instance per figure (the paper's second axis anchored against the
+    reference stack's own timing).  The replica record
     comes from scripts/bench_gap_vs_time.py (its score/lp times are
     cumulative); gap closed uses the same registry (mc, sdp) normalization as
     the suite record."""
-    mc, sdp = tpu_rec["mccormick"], tpu_rec["sdp"]
+    mc, sdp = jax_rec["mccormick"], jax_rec["sdp"]
     denom = mc - sdp
-    if denom <= 0 or not tpu_rec.get("round_times_s"):
+    if denom <= 0 or not jax_rec.get("round_times_s"):
         return False
     fig, ax = plt.subplots(figsize=(5.2, 3.4), dpi=150)
     _style(ax)
-    g = [100.0 * v for v in tpu_rec["gap_closed"]]
+    g = [100.0 * v for v in jax_rec["gap_closed"]]
     t, cum = [], 0.0
-    for dt in tpu_rec["round_times_s"]:
+    for dt in jax_rec["round_times_s"]:
         cum += dt
         t.append(cum)
     m = min(len(g), len(t))
-    ax.plot(t[:m], g[:m], color=COLORS.get(tpu_rec["strategy"], TEXT),
+    ax.plot(t[:m], g[:m], color=COLORS.get(jax_rec["strategy"], TEXT),
             linewidth=2, marker="o", markersize=3.5,
-            label=f"TPU ({tpu_rec['strategy']})")
+            label=f"JAX build ({jax_rec['strategy']})")
     rb = timing_rec["bounds"]
     rg = [100.0 * max(0.0, min(1.0, (mc - b) / denom)) for b in rb]
     rt = [s + l for s, l in zip(timing_rec["score_time_s"],
@@ -152,11 +152,11 @@ def plot_tpu_vs_replica_time(name, tpu_rec, timing_rec, out_dir):
     ax.set_xlabel("wall-clock (s)", color=MUTED, fontsize=9)
     ax.set_ylabel("% SDP gap closed", color=MUTED, fontsize=9)
     ax.set_xscale("log")
-    ax.set_title(f"{name} — TPU vs reference stack", color=TEXT,
+    ax.set_title(f"{name} — JAX build vs reference stack", color=TEXT,
                  fontsize=11, loc="left")
     ax.legend(frameon=False, fontsize=8, labelcolor=TEXT, loc="lower right")
     fig.tight_layout()
-    fig.savefig(os.path.join(out_dir, f"tpu_vs_replica_time_{name}.svg"))
+    fig.savefig(os.path.join(out_dir, f"jax_vs_replica_time_{name}.svg"))
     plt.close(fig)
     return True
 
@@ -213,9 +213,9 @@ def render_all(path, out_dir):
                 except json.JSONDecodeError:
                     continue
                 recs = rows.get(tr.get("instance"), {})
-                tpu = recs.get(tr.get("strategy")) or recs.get("neural")
-                if tpu and plot_tpu_vs_replica_time(
-                        tr["instance"], tpu, tr, out_dir):
+                rec = recs.get(tr.get("strategy")) or recs.get("neural")
+                if rec and plot_jax_vs_replica_time(
+                        tr["instance"], rec, tr, out_dir):
                     count += 1
     return count
 

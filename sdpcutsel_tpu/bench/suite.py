@@ -1,13 +1,13 @@
 """Experiment driver: run the BoxQP suite, aggregate % gap closed.
 
-TPU counterpart of the reference's run_experiments script (SURVEY.md R4,
+Counterpart of the reference's run_experiments script (SURVEY.md R4,
 section 3.3): for each (instance, strategy) run the cutting-plane loop,
 record per-round certified bounds, and report the % of the
 (McCormick - SDP) gap closed per round.
 
 SDP reference bounds are computed once per instance by the full-eigencut loop
 (loop/sdp_bound.py) and cached in a JSON registry next to the instance data —
-the TPU-native replacement for the reference's shipped known-optima files.
+the replacement for the reference's shipped known-optima files.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def bounds_registry(path: str):
 def ensure_bounds(name: str, data_dir: str, lp_cfg=None, max_rounds: int = 150):
     """Get (mccormick_bound, sdp_bound) for an instance.  On a registry miss
     the sandwich is CERTIFIED with the validated settings and persisted
-    (ADVICE r4: the old fallback ran a loose, never-saved eigencut stall)."""
+    (the old fallback ran a loose, never-saved eigencut stall)."""
     from ..utils.registry import ensure_certified_bounds
 
     inst = load_or_generate(name, data_dir=data_dir)

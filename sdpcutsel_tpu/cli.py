@@ -95,6 +95,9 @@ def main(argv=None):
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.cmd == "plot":
         from .bench import plots

@@ -1,12 +1,12 @@
 """Batched small symmetric eigendecomposition.
 
 Replaces the reference's LAPACK dsyev calls over Python loops (SURVEY.md R6)
-with a batched device eigh.  Two backends:
+with batched device code:
 
-  * ``jnp.linalg.eigh`` — XLA's batched small-matrix path (default, always
-    correct).
-  * the Pallas fused Jacobi kernel in ops/eigh_pallas.py for the hot
-    score-everything pass (wired in by the scorer; falls back here off-TPU).
+  * ``jnp.linalg.eigh`` — full (w, V) for the few SELECTED candidates at cut
+    generation time.
+  * the struct-of-arrays Jacobi in ops/jacobi.py — lambda_min only, for the
+    hot score-everything pass.
 
 Note on tolerance: cut VALIDITY never depends on eigenvector accuracy — for
 any vector v, v'Z v >= 0 is implied by Z >= 0 — only cut VIOLATION (quality)
@@ -32,12 +32,12 @@ def feasibility_scores(Z):
     """Feasibility-based score: -lambda_min(Z(rho)) (violation magnitude).
 
     Hot path over ALL candidates: struct-of-arrays Jacobi (ops/jacobi.py),
-    every op an elementwise VPU instruction over the candidate axis."""
+    every op elementwise over the candidate axis."""
     return -jacobi_min_eigval(Z, sweeps=6)
 
 
-def feasibility_scores_from_point(x, X, table):
+def feasibility_scores_from_point(x, X, table, sweeps: int = 6):
     """Same, built directly from gathers without materializing (T, m, m)."""
     xr = x[table]
     Xr = X[table[:, :, None], table[:, None, :]]
-    return -min_eig_from_parts(xr, Xr, sweeps=6)
+    return -min_eig_from_parts(xr, Xr, sweeps=sweeps)

@@ -91,7 +91,7 @@ def generate_qcqp_band(n: int, bandwidth: int, m: int,
                        seed: int) -> QCQPInstance:
     """Band-structured sparse QCQP: nonzeros only on |i - j| <= bandwidth.
 
-    The large-n QCQP family (VERDICT r3 next #5): a banded sparsity graph
+    The large-n QCQP family: a banded sparsity graph
     is already chordal with maximal cliques of exactly bandwidth+1
     consecutive indices, so the chordal decomposition (qcqp/chordal.py) is
     fill-in-free and the candidate count grows LINEARLY in n — unlike

@@ -4,7 +4,7 @@ Round-5 replacement for the eigencut loop as the denominator certifier: at
 n >= 80 the outer polyhedral approximation converges too slowly (measured
 spar100-75-2: bound still 2000 above the saturated Burer-Monteiro primal
 after 150 rounds, lambda_min stuck at -0.25), leaving gap-denominator
-sandwich widths of 18-26% (VERDICT r4 next #1).  Instead of approximating
+sandwich widths of 18-26%.  Instead of approximating
 the PSD cone with cuts, certify from the DUAL side in closed form.
 
 Derivation.  Primal: max f = 1/2<Q,X> + c'x over the McCormick box

@@ -7,7 +7,7 @@ Purpose: a TIGHT independent lower bound on the SDP relaxation value
 to sandwich the eigencut-loop upper bound (loop/sdp_bound.py).  The round-3
 certificate blended the final LP point toward an interior anchor; at n>=40
 the LP point sits far outside the PSD cone, the blend coefficient explodes
-and the certificate collapses (rel_width ~0.8-1.0 — VERDICT r3 weak #1).
+and the certificate collapses (rel_width ~0.8-1.0).
 
 This module instead MAXIMIZES the primal directly over a low-rank
 factorization: fix Y0 = e1 and parametrize
@@ -94,7 +94,7 @@ def bm_feasible_point(
     else:
         x = np.clip(np.asarray(x0, np.float64), 0.0, 1.0)
         if X0 is None:
-            # x0 without X0 is a legal warm start (ADVICE r4 #5): factor a
+            # x0 without X0 is a legal warm start: factor a
             # slightly-interior lift around the given point
             X0 = np.outer(x, x) + 0.05 * np.eye(n)
         M = np.asarray(X0, np.float64) - np.outer(x, x)

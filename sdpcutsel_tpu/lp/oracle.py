@@ -1,9 +1,9 @@
 """CPU LP oracle: explicit sparse McCormick LP solved with scipy HiGHS.
 
-Test-only correctness oracle for the TPU PDHG solver (SURVEY.md section 4:
-"TPU PDHG LP bound vs scipy HiGHS on small instances").  Builds the classic
+Test-only correctness oracle for the device PDHG solver (SURVEY.md section 4:
+"device PDHG LP bound vs scipy HiGHS on small instances").  Builds the classic
 upper-triangular-variable formulation the reference feeds CPLEX and solves it
-with HiGHS dual simplex.  Never used on the TPU solve path.
+with HiGHS dual simplex.  Never used on the device solve path.
 """
 
 from __future__ import annotations

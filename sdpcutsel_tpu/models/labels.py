@@ -14,9 +14,9 @@ Schur complement of Z(rho) >= 0 at fixed x.  improvement >= 0 measures how
 much this block's objective contribution must drop to become PSD-consistent
 at the current point — the per-block bound improvement the cut can deliver.
 
-The subproblem is a k x k SDP (k <= 5).  TPU-native solver: batched ADMM over
+The subproblem is a k x k SDP (k <= 5).  Solver here: batched ADMM over
 the splitting  box-cap intersect (xx^T + PSD), each iteration one clip and one
-batched small eigh — thousands of subproblems solve in parallel on the MXU/VPU
+batched small eigh — thousands of subproblems solve in parallel on device
 (this replaces the reference's per-candidate CPU SDP calls).
 """
 

@@ -1,91 +1,100 @@
-"""Flax MLP cut scorers — the NN-estimated optimality strategy (headline).
+"""MLP cut scorers — the NN-estimated optimality strategy (headline).
 
 One small dense MLP per submatrix dimension k (SURVEY.md section 0.6: "a few
 hidden layers, ~tens of units", trained offline, shipped in-repo).  At solve
-time the entire candidate batch is scored in one matmul pass (the stage the
-TPU build turns into fused MXU work).
+time the entire candidate batch is scored in one matmul pass.
 
-Weights ship as flax msgpack artifacts under models/artifacts/mlp_k{k}.msgpack
+The MLP is a plain jnp function over a params dict
+{"W0", "b0", ..., "W{L}", "b{L}"} (ReLU between layers, one output unit).
+Weights ship as ``.npz`` artifacts under models/artifacts/mlp_k{k}.npz
 (trained by models/train.py); absent an artifact the scorer falls back to a
 deterministic random init (useful for tests; quality then ~ random strategy).
+
+Precision: every MLP product runs at ``Precision.HIGHEST`` (full f32, no TF32
+or bf16 passes on any backend), so scores agree with an f32 numpy reference
+to f32 rounding (tests/test_models.py).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Sequence
 
-import flax.linen as nn
-import flax.serialization
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..config import ScorerConfig
+from ..cuts.eigen import feasibility_scores_from_point
 from .features import candidate_features, candidate_q_features, feature_dim
 
 _ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "artifacts")
-
-
-class MLPScorer(nn.Module):
-    """feats (B, d) -> predicted scale-normalized improvement (B,)."""
-
-    hidden: Sequence[int] = (64, 64)
-
-    @nn.compact
-    def __call__(self, x):
-        for h in self.hidden:
-            x = nn.relu(nn.Dense(h)(x))
-        x = nn.Dense(1)(x)
-        return jnp.squeeze(x, -1)
+PRECISION = jax.lax.Precision.HIGHEST
 
 
 def artifact_path(k: int) -> str:
-    return os.path.join(_ARTIFACT_DIR, f"mlp_k{k}.msgpack")
+    return os.path.join(_ARTIFACT_DIR, f"mlp_k{k}.npz")
 
 
-def init_params(k: int, hidden=(64, 64), seed: int = 0):
-    model = MLPScorer(hidden=tuple(hidden))
-    feats = jnp.zeros((1, feature_dim(k)))
-    return model.init(jax.random.PRNGKey(seed), feats)
+def mlp_layers(params) -> list:
+    """[(W0, b0), ..., (WL, bL)] in application order."""
+    return [(params[f"W{i}"], params[f"b{i}"])
+            for i in range(len(params) // 2)]
+
+
+def init_params(k: int, hidden=(64, 64), seed: int = 0) -> dict:
+    """Deterministic LeCun-normal kernels, zero biases."""
+    dims = [feature_dim(k), *hidden, 1]
+    keys = jax.random.split(jax.random.PRNGKey(seed), len(dims) - 1)
+    init = jax.nn.initializers.lecun_normal()
+    params = {}
+    for i, (key, d_in, d_out) in enumerate(zip(keys, dims[:-1], dims[1:])):
+        params[f"W{i}"] = init(key, (d_in, d_out), jnp.float32)
+        params[f"b{i}"] = jnp.zeros((d_out,), jnp.float32)
+    return params
+
+
+def mlp_apply(params, feats):
+    """feats (B, d) -> predicted scale-normalized improvement (B,)."""
+    layers = mlp_layers(params)
+    h = feats
+    for W, b in layers[:-1]:
+        h = jnp.maximum(jnp.dot(h, W, precision=PRECISION) + b, 0.0)
+    W, b = layers[-1]
+    return (jnp.dot(h, W, precision=PRECISION) + b)[:, 0]
 
 
 def save_params(params, path: str):
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
-        f.write(flax.serialization.to_bytes(params))
+        np.savez(f, **{name: np.asarray(a) for name, a in params.items()})
 
 
-def load_params(k: int, hidden=(64, 64), path: str | None = None, seed: int = 0):
-    """Load the trained artifact for dimension k, or deterministic init."""
+def load_params(k: int, hidden=(64, 64), path: str | None = None,
+                seed: int = 0):
+    """Load the trained artifact for dimension k, or deterministic init.
+    Returns (params, found)."""
     template = init_params(k, hidden, seed)
     path = path or artifact_path(k)
-    if os.path.exists(path):
-        with open(path, "rb") as f:
-            return flax.serialization.from_bytes(template, f.read()), True
-    return template, False
+    if not os.path.exists(path):
+        return template, False
+    with np.load(path) as z:
+        params = {name: jnp.asarray(z[name]) for name in z.files}
+    want = {name: a.shape for name, a in template.items()}
+    got = {name: a.shape for name, a in params.items()}
+    if got != want:
+        raise ValueError(f"{path}: layer shapes {got} do not match "
+                         f"k={k}, hidden={tuple(hidden)}: {want}")
+    return params, True
 
 
-def make_fused_scorer(Q, table, cfg: ScorerConfig):
-    """Fused Pallas scorer for k=3 on TPU: one kernel pass returns BOTH the
-    NN improvement estimate and the feasibility violation for every
-    candidate (ops/fused_score.py).  The table must be padded to a multiple
-    of 1024 rows (parallel.sharding.pad_table).  Returns
-    score(x, X) -> (nn_scores, feas_scores)."""
-    import jax.numpy as jnp
-
-    from ..ops.fused_score import fused_score_k3, mlp_params_for_kernel
-
-    k = int(table.shape[1])
-    assert k == 3, "fused scorer is the k=3 specialization"
-    params, _ = load_params(k, tuple(cfg.hidden), cfg.weights_path, cfg.seed)
-    triQ, scale = candidate_q_features(Q, table)
-    W = [jnp.asarray(a) for a in mlp_params_for_kernel(params)]
-
-    def score(x, X):
-        return fused_score_k3(x, X, table, triQ, scale, *W,
-                              block=1024, sweeps=5)
-
-    return score
+def generic_scores(x, X, table, triQ, scale, params, sweeps: int = 6):
+    """(nn, feas) for every row of any candidate table (dense C(n,k) or the
+    QCQP clique table): nn = scale * relu(MLP(features)), feas =
+    -lambda_min(Z(rho)) by the struct-of-arrays Jacobi (ops/jacobi.py)."""
+    feats = candidate_features(triQ, x, X, table)
+    nn = scale * jnp.maximum(mlp_apply(params, feats), 0.0)
+    feas = feasibility_scores_from_point(x, X, table, sweeps=sweeps)
+    return nn, feas
 
 
 def neural_score_fn(Q, table, cfg: ScorerConfig, combined: bool = False,
@@ -103,20 +112,12 @@ def neural_score_fn(Q, table, cfg: ScorerConfig, combined: bool = False,
     """
     k = int(table.shape[1])
     params, _ = load_params(k, tuple(cfg.hidden), cfg.weights_path, cfg.seed)
-    model = MLPScorer(hidden=tuple(cfg.hidden))
     triQ, scale = candidate_q_features(Q, table)
 
     @jax.jit
     def score(x, X, key):
-        feats = candidate_features(triQ, x, X, table)
-        pred = model.apply(params, feats)
-        s = scale * jnp.maximum(pred, 0.0)
-        if combined:
-            from ..cuts.assemble import assemble_Z
-            from ..cuts.eigen import feasibility_scores
-
-            viol = feasibility_scores(assemble_Z(x, X, table))
-            s = jnp.where(viol > gate_tol, s, -jnp.inf)
-        return s
+        # without the gate XLA drops the unused lambda_min as dead code
+        nn, viol = generic_scores(x, X, table, triQ, scale, params)
+        return jnp.where(viol > gate_tol, nn, -jnp.inf) if combined else nn
 
     return score

@@ -1,8 +1,8 @@
 """Offline NN pipeline: subproblem sampling, exact labeling, MLP training.
 
-TPU-native re-design of the reference's TF/Keras offline stage (SURVEY.md
-sections 0.6, 3.2): the label "solver" is the batched ADMM small-SDP oracle in
-labels.py, so the WHOLE pipeline — sampling, exact labeling of hundreds of
+Re-design of the reference's TF/Keras offline stage (SURVEY.md sections 0.6,
+3.2): the label "solver" is the batched ADMM small-SDP oracle in labels.py, so
+the WHOLE pipeline — sampling, exact labeling of hundreds of
 thousands of subproblems, and MLP training — runs on device.
 
 Sampling distribution (matches solve-time statistics):
@@ -30,7 +30,7 @@ import optax
 
 from .features import tri_indices
 from .labels import _mccormick_box, solve_subproblem_admm
-from .scorer import MLPScorer, artifact_path, init_params, save_params
+from .scorer import artifact_path, init_params, mlp_apply, save_params
 
 
 def sample_subproblems(key, k: int, num: int, dup_frac: float = 0.0):
@@ -264,7 +264,6 @@ def train_scorer(
     ftr, ltr = jnp.asarray(ftr), jnp.asarray(ltr)
     fte, lte = jnp.asarray(fte), jnp.asarray(lte)
 
-    model = MLPScorer(hidden=tuple(hidden))
     params = init_params(k, hidden, seed)
     sched = optax.cosine_decay_schedule(lr, steps)
     opt = optax.adam(sched)
@@ -276,7 +275,7 @@ def train_scorer(
         fb, lb = ftr[idx], ltr[idx]
 
         def loss_fn(p):
-            pred = model.apply(p, fb)
+            pred = mlp_apply(p, fb)
             return jnp.mean((pred - lb) ** 2)
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
@@ -288,7 +287,7 @@ def train_scorer(
         key, sub = jax.random.split(key)
         params, opt_state, loss = step(params, opt_state, sub)
         if verbose and (i % 500 == 0 or i == steps - 1):
-            pred = model.apply(params, fte)
+            pred = mlp_apply(params, fte)
             mse = float(jnp.mean((pred - lte) ** 2))
             var = float(jnp.var(lte))
             # rank quality matters for selection: Spearman on holdout
@@ -298,7 +297,7 @@ def train_scorer(
 
     out_path = out_path or artifact_path(k)
     save_params(params, out_path)
-    pred = np.asarray(model.apply(params, fte))
+    pred = np.asarray(mlp_apply(params, fte))
     lte_np = np.asarray(lte)
     mse = float(np.mean((pred - lte_np) ** 2))
     # ranking quality where it matters: among genuinely improving candidates,

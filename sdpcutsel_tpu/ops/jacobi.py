@@ -1,12 +1,11 @@
 """Batched tiny symmetric eigensolver: cyclic Jacobi in struct-of-arrays form.
 
 XLA's generic ``jnp.linalg.eigh`` on a (T, m, m) batch of tiny matrices
-(m = k+1 <= 6) runs a QR-style algorithm that is orders of magnitude off the
-VPU's speed of light for this shape.  The TPU-native formulation turns the
-batch axis into the vector lane axis: the m(m+1)/2 unique entries of each
-Z(rho) live in separate (T,)-arrays, and a FIXED, fully unrolled schedule of
-Jacobi rotations updates them with pure elementwise arithmetic — every op is
-an (8,128)-tiled VPU instruction over candidates, nothing is serial in T.
+(m = k+1 <= 6) runs an iterative algorithm per matrix that is far slower
+than elementwise work on this shape.  Here the batch axis is the array axis:
+the m(m+1)/2 unique entries of each Z(rho) live in separate (T,)-arrays, and
+a FIXED, fully unrolled schedule of Jacobi rotations updates them with pure
+elementwise arithmetic over candidates — nothing is serial in T.
 
 For scoring we need only lambda_min (feasibility violation = -lambda_min,
 SURVEY.md section 0.4); sweeps * C(m,2) rotations drive off-diagonals to ~0
@@ -14,9 +13,9 @@ and the minimum diagonal entry is lambda_min to f32 accuracy.  Cut validity
 never depends on eigen accuracy (any vector gives a valid cut), so f32 is
 safe by construction.
 
-Used by cuts/eigen.feasibility_scores via ops/fused_score on the hot path;
-jnp.linalg.eigh remains for the small selected-candidate eigh at cut
-generation time.
+Used on the hot path by cuts/eigen.feasibility_scores* and
+models/scorer.generic_scores; jnp.linalg.eigh remains for the small
+selected-candidate eigh at cut generation time.
 """
 
 from __future__ import annotations

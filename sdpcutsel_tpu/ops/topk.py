@@ -50,10 +50,9 @@ def diverse_topk(scores, table, k: int, n: int, alpha: float, mask=None):
     C = scores.shape[0]
     iota = jnp.arange(C)
 
-    # Per-candidate penalty is maintained INCREMENTALLY: the original
-    # formulation re-gathered counts[table].sum(1) — a (C, k) gather per
-    # greedy step, which serializes on TPU and cost ~1.3 s/round at n=125
-    # inside the scan (round-4 bench regression).  Picking candidate i adds
+    # Per-candidate penalty is maintained INCREMENTALLY instead of
+    # re-gathering counts[table].sum(1) — a (C, k) gather per greedy step
+    # inside the scan.  Picking candidate i adds
     # 1 to each of its indices' counts, so every other candidate's penalty
     # grows by its number of index matches with table[i] — a vectorized
     # (C, k, k) compare, no gather.  Identical math incl. duplicate-index

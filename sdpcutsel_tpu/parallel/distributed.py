@@ -1,16 +1,17 @@
 """Multi-host bring-up and host coordination (P3, SURVEY.md sections 2.3, 5.8).
 
-The TPU-native distributed backend is XLA collectives over ICI/DCN; the only
-host-side machinery needed is (a) `jax.distributed.initialize` so all
-processes join one runtime and see the global device set, and (b)
-`multihost_utils` for host-side sync and for building/fetching global arrays
-whose shards live on other hosts.  No NCCL/MPI layer exists or is needed.
+Layout: one process per host, each driving all of its host's GPUs.  The
+collectives are XLA's (NCCL); the host-side machinery is (a)
+`jax.distributed.initialize` so all processes join one runtime and see the
+global device set, and (b) `multihost_utils` for host-side sync and for
+building/fetching global arrays whose shards live on other hosts.
 
 Mesh layout for N >= 2 hosts: parallel/mesh.make_mesh lays the 'data'
-(instance) axis across DCN — no collectives cross it — and the 'cand' axis
-within a slice so the per-round top-k all_gather rides ICI.
+(instance) axis across hosts — no collectives cross it — and keeps each
+'cand' group on one host, so the per-round top-k all_gather stays on that
+host's NVLink.
 
-Proven without a pod: tests/test_multihost.py launches two local CPU
+Tested without a cluster: tests/test_multihost.py launches two local CPU
 processes (gloo collectives) forming a 2 x 4 virtual mesh and runs the full
 sharded production round step across them (scripts/run_multihost.py).
 """
@@ -31,10 +32,9 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_count: Optional[int] = None) -> None:
     """Join the multi-process runtime (idempotent).
 
-    On a TPU pod slice all arguments auto-detect (plain
-    ``jax.distributed.initialize()``).  Off-pod (CPU simulation, manual
-    bring-up) pass them explicitly or via JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID.
+    Pass the coordinator address (``host:port`` of process 0), the process
+    count and this process's id explicitly or via JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID; nothing is auto-detected.
     """
     # Idempotence guard that must NOT touch the backend (jax.process_count()
     # would initialize XLA, after which distributed init is rejected).
@@ -51,13 +51,13 @@ def initialize(coordinator_address: Optional[str] = None,
     kwargs = {}
     if local_device_count is not None:
         kwargs["local_device_count"] = local_device_count
-    if coordinator_address is None:
-        # TPU pod: everything auto-detects from the TPU runtime metadata
-        jax.distributed.initialize(**kwargs)
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes, process_id=process_id, **kwargs)
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        raise ValueError("initialize needs coordinator_address, "
+                         "num_processes and process_id")
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes, process_id=process_id, **kwargs)
 
 
 def sync(tag: str = "sync") -> None:
@@ -70,7 +70,7 @@ def sync(tag: str = "sync") -> None:
 def put_global(arr, mesh: Mesh, spec: P):
     """Build a global array sharded per ``spec`` from a full host-replicated
     numpy value (every host holds the same full array; each device reads its
-    own slice).  The robust construction off-pod and on-pod alike."""
+    own slice)."""
     arr = np.asarray(arr)
     sh = NamedSharding(mesh, spec)
     return jax.make_array_from_callback(arr.shape, sh, lambda idx: arr[idx])

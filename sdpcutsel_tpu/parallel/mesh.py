@@ -1,17 +1,17 @@
-"""Device mesh construction: ('data', 'cand') axes over ICI/DCN.
+"""Device mesh construction: ('data', 'cand') axes.
 
-The TPU-native communication backend is XLA collectives over the mesh — no
-NCCL/MPI layer exists or is needed (SURVEY.md section 2.3 P4).  Axes:
+Collectives are XLA's over the mesh (NCCL between GPUs) — no separate
+communication layer (SURVEY.md section 2.3 P4).  Axes:
 
   'data' — instance batch axis (P2): independent BoxQP instances solved
            concurrently; no collectives cross this axis.
   'cand' — candidate-space axis (P1): the C(n,k) scoring domain is sharded;
            the only collective is the per-round global top-k all_gather.
 
-Multi-host (P3): when more than one process participates, chips within a
-slice are connected by ICI and slices by DCN; create_hybrid_device_mesh lays
-the 'data' axis across DCN (cheap, no collectives) and 'cand' within the
-slice so the top-k all_gather rides ICI.
+GPUs of a host are joined all to all, so the mesh follows the algorithm
+alone.  With several processes (parallel/distributed.py), devices are
+ordered so the 'data' axis spans processes (no collectives cross it) and
+each 'cand' group stays inside one process.
 """
 
 from __future__ import annotations
@@ -28,25 +28,8 @@ def make_mesh(data: int = 1, cand: int = 1, devices=None) -> Mesh:
         raise ValueError(f"mesh {data}x{cand} needs {need} devices, "
                          f"have {len(devices)}")
     if jax.process_count() > 1:
-        n_slices = len({getattr(d, "slice_index", 0) for d in devices})
-        if n_slices > 1:
-            # real multi-slice TPU: ICI within a slice, DCN across slices
-            from jax.experimental.mesh_utils import create_hybrid_device_mesh
-
-            arr = create_hybrid_device_mesh(
-                mesh_shape=(max(data // n_slices, 1), cand),
-                dcn_mesh_shape=(n_slices, 1),
-                devices=devices,
-            )
-        else:
-            # multi-process single-slice (or the CPU multi-process
-            # simulation, tests/test_multihost.py): order devices so the
-            # 'data' axis spans processes (the DCN-like boundary — no
-            # collectives cross it) and 'cand' groups stay process-local
-            devices = sorted(devices, key=lambda d: (d.process_index, d.id))
-            arr = np.asarray(devices[:need]).reshape(data, cand)
-    else:
-        arr = np.asarray(devices[:need]).reshape(data, cand)
+        devices = sorted(devices, key=lambda d: (d.process_index, d.id))
+    arr = np.asarray(devices[:need]).reshape(data, cand)
     return Mesh(arr, ("data", "cand"))
 
 

@@ -38,45 +38,14 @@ def pad_table(table: np.ndarray, parts: int):
     return padded, valid
 
 
-def shard_candidates(table: np.ndarray, mesh: Mesh, block: int = None):
-    """Place the (padded) table with rows sharded over the 'cand' axis.
-
-    ``block``: additionally pad so every shard's slice is a multiple of this
-    row count — required by the fused Pallas scorer (ops/fused_score.py,
-    block=1024).  Default: pad to the kernel block on TPU (where the fused
-    path is the production scorer), to the shard count alone elsewhere."""
-    parts = mesh.shape["cand"]
-    if block is None:
-        block = 1024 if jax.default_backend() == "tpu" else 1
-    padded, valid = pad_table(np.asarray(table), parts * block)
+def shard_candidates(table: np.ndarray, mesh: Mesh):
+    """Place the table, padded to a multiple of the 'cand' axis size, with
+    rows sharded over 'cand'.  Returns (table, valid)."""
+    padded, valid = pad_table(np.asarray(table), mesh.shape["cand"])
     sharding = NamedSharding(mesh, P("cand", None))
     return (
         jax.device_put(jnp.asarray(padded), sharding),
         jax.device_put(jnp.asarray(valid), NamedSharding(mesh, P("cand"))),
-    )
-
-
-def shard_pair_candidates(n: int, mesh: Mesh, block: int = 1024):
-    """Pair-layout candidate table (ops/pair_score.py) sharded over 'cand'.
-
-    The global table is build_pair_layout's slot order (slot p*128 + l =
-    triple (pi[p], pj[p], l)); shard slices are multiples of ``block``
-    (>= 128), so every shard's rows remain whole 128-lane pair runs and a
-    shard-local scorer can recover its pairs as table[::128, :2].  Returns
-    (table, valid) device-put like shard_candidates.
-    """
-    from ..ops.pair_score import build_pair_layout
-
-    assert block % 128 == 0
-    _, _, table, valid = build_pair_layout(n)
-    parts = mesh.shape["cand"]
-    padded, _ = pad_table(np.asarray(table), parts * block)
-    valid_full = np.zeros(padded.shape[0], bool)
-    valid_full[: valid.shape[0]] = valid
-    sharding = NamedSharding(mesh, P("cand", None))
-    return (
-        jax.device_put(jnp.asarray(padded), sharding),
-        jax.device_put(jnp.asarray(valid_full), NamedSharding(mesh, P("cand"))),
     )
 
 

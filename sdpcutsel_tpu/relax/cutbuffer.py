@@ -1,8 +1,8 @@
 """Fixed-capacity masked cut pool — the jit-friendly dynamic cut buffer.
 
 The reference appends/removes CPLEX rows dynamically each round (SURVEY.md
-section 3.1).  Under XLA everything must have static shapes, so the TPU-native
-equivalent is a fixed-capacity buffer of cut rows with an activity mask:
+section 3.1).  Under XLA everything must have static shapes, so the
+equivalent here is a fixed-capacity buffer of cut rows with an activity mask:
 
     cut t (support rho of size <= kmax, eigenvector v = (v0, u)):
         lin . x[idx_t]  +  <quad, X[idx_t, idx_t]>  >=  rhs_t
@@ -21,7 +21,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
+
+# Precision of every f32 product of the LP operator: full f32 on every
+# backend.  A TF32 or bf16 pass would make the gathered X inexact at ~1e-3,
+# far above viol_tol = 1e-4 (docs/ARCHITECTURE.md, invariant #4).
+PRECISION = jax.lax.Precision.HIGHEST
 
 
 class CutPool(NamedTuple):
@@ -82,14 +88,12 @@ def support_embedding(pool: CutPool, n: int, dtype=None):
     """One-hot support embedding E3: (M, kmax, n), E3[t, a, i] = active_t *
     [idx[t, a] == i].
 
-    Purpose: XLA scatter-adds serialize on TPU (duplicate destinations force
-    sequential commits) and per-element gathers are little better, so running
-    cut_residuals/cut_adjoint inside the PDHG inner loop costs tens of
-    microseconds per iteration at suite capacity.  E3 re-expresses BOTH as
-    dense (M*kmax, n)-shaped matmuls — pure MXU work, ~100M MACs/iteration at
-    (M=2048, n=125), microseconds.  E3 depends only on the pool, so the
-    solver builds it ONCE per solve (loop-invariant, lives outside the
-    while_loop) with an elementwise compare — no scatter anywhere."""
+    Purpose: E3 re-expresses cut_residuals/cut_adjoint inside the PDHG inner
+    loop as dense (M*kmax, n)-shaped matmuls instead of per-element gathers
+    and scatter-adds with duplicate destinations (~100M MACs/iteration at
+    M=2048, n=125).  E3 depends only on the pool, so the solver builds it
+    ONCE per solve (loop-invariant, lives outside the while_loop) with an
+    elementwise compare — no scatter anywhere."""
     if dtype is None:
         dtype = pool.lin.dtype
     iota = jnp.arange(n, dtype=pool.idx.dtype)
@@ -102,13 +106,13 @@ def cut_residuals_emb(x, X, pool: CutPool, E3, include_rhs: bool = True):
     E3 carries the active mask, so inactive rows are zero by construction.
 
     Shapes matter: a naive einsum('tan,nm->tam') lowers to M batched (k, n)
-    matmuls — thousands of 3-row MXU calls (measured 177 us/iteration at
-    M=2048, n=125).  Flattening to ONE (M*k, n) @ (n, n) contraction and
-    doing the tiny k x k reductions elementwise keeps the MXU busy."""
+    matmuls — thousands of 3-row products.  Flattening to ONE (M*k, n) @
+    (n, n) contraction and doing the tiny k x k reductions elementwise keeps
+    it one large product."""
     M, k, n = E3.shape
     Ef = E3.reshape(M * k, n)
-    xg = (Ef @ x).reshape(M, k)
-    tmp = (Ef @ X).reshape(M, k, n)                       # (E X)[t, a, :]
+    xg = jnp.dot(Ef, x, precision=PRECISION).reshape(M, k)
+    tmp = jnp.dot(Ef, X, precision=PRECISION).reshape(M, k, n)  # (E X)[t,a,:]
     # Xg[t,a,b] = sum_m tmp[t,a,m] E3[t,b,m] — k*k is tiny; elementwise+reduce
     Xg = jnp.sum(tmp[:, :, None, :] * E3[:, None, :, :], axis=-1)
     r = jnp.sum(pool.lin * xg, axis=1) + jnp.sum(pool.quad * Xg, axis=(1, 2))
@@ -124,11 +128,12 @@ def cut_adjoint_emb(yC, pool: CutPool, E3):
     M, k, n = E3.shape
     w = yC * pool.active
     Ef = E3.reshape(M * k, n)
-    gx = (w[:, None] * pool.lin).reshape(M * k) @ Ef
+    gx = jnp.dot((w[:, None] * pool.lin).reshape(M * k), Ef,
+                 precision=PRECISION)
     # wq[t,a,:] = sum_b (w quad)[t,a,b] E3[t,b,:]
     wq = jnp.sum((w[:, None, None] * pool.quad)[:, :, :, None]
                  * E3[:, None, :, :], axis=2)
-    gX = Ef.T @ wq.reshape(M * k, n)
+    gX = jnp.dot(Ef.T, wq.reshape(M * k, n), precision=PRECISION)
     return gx, gX
 
 

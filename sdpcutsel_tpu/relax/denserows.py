@@ -9,9 +9,9 @@ which in the min-form convention K z >= h becomes
     row_i:  -(<Gi, X> + gi'x) >= -bi,  Gi = Qi/2, gi = ci,
 
 row-normalized like every other block.  Stored dense ((m, n, n) + (m, n)):
-for the target sizes (n <= 125, m <= ~64) the matvec is one einsum on the
-MXU — no sparse machinery needed or wanted on TPU.  BoxQP uses an empty
-block (m = 0); zero-size arrays compile fine under jit.
+for the target sizes (n <= 125, m <= ~64) the matvec is one einsum — no
+sparse machinery needed.  BoxQP uses an empty block (m = 0); zero-size
+arrays compile fine under jit.  Products run at cutbuffer.PRECISION.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+
+from .cutbuffer import PRECISION
 
 
 class DenseRows(NamedTuple):
@@ -76,7 +78,8 @@ def batched_dense_from_qcqp(instances, dtype=jnp.float32) -> DenseRows:
 
 def dense_residuals(x, X, dense: DenseRows, include_rhs: bool = True):
     """K z (linear part) for the dense block; (m,)."""
-    r = jnp.einsum("mij,ij->m", dense.G, X) + dense.g @ x
+    r = (jnp.einsum("mij,ij->m", dense.G, X, precision=PRECISION)
+         + jnp.dot(dense.g, x, precision=PRECISION))
     if include_rhs:
         r = r - dense.h
     return r
@@ -84,6 +87,6 @@ def dense_residuals(x, X, dense: DenseRows, include_rhs: bool = True):
 
 def dense_adjoint(yD, dense: DenseRows):
     """(gx, gX) = K^T yD for the dense block."""
-    gx = dense.g.T @ yD
-    gX = jnp.einsum("m,mij->ij", yD, dense.G)
+    gx = jnp.dot(dense.g.T, yD, precision=PRECISION)
+    gX = jnp.einsum("m,mij->ij", yD, dense.G, precision=PRECISION)
     return gx, gX

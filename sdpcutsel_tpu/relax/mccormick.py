@@ -1,10 +1,10 @@
-"""McCormick/RLT relaxation as structured dense TPU operators.
+"""McCormick/RLT relaxation as structured dense operators.
 
 The reference builds the McCormick LP as explicit CPLEX rows (SURVEY.md
-sections 0.2, 1: 3-4 rows per (i,j) pair).  A TPU-native design stores no
-sparse constraint matrix at all: the primal point is ``(x: (n,), X: (n,n))``
-with X kept symmetric, and the McCormick rows become two *uniform* dense
-residual arrays evaluated elementwise on the VPU:
+sections 0.2, 1: 3-4 rows per (i,j) pair).  This design stores no sparse
+constraint matrix at all: the primal point is ``(x: (n,), X: (n,n))`` with X
+kept symmetric, and the McCormick rows become two *uniform* dense residual
+arrays evaluated elementwise:
 
     for ALL ordered pairs (i,j) in n x n (diagonal included):
         rA[i,j] = x_i - X_ij                >= 0      (X_ij <= x_i; via (j,i)
@@ -33,7 +33,8 @@ import math
 import jax.numpy as jnp
 
 from .cutbuffer import (
-    CutPool, cut_adjoint, cut_adjoint_emb, cut_residuals, cut_residuals_emb,
+    PRECISION, CutPool, cut_adjoint, cut_adjoint_emb, cut_residuals,
+    cut_residuals_emb,
 )
 from .denserows import DenseRows, dense_residuals, dense_adjoint
 
@@ -43,7 +44,7 @@ SB = 1.0 / math.sqrt(3.0)  # row scaling for rB
 
 def objective_minform(Q, c, x, X):
     """Min-form objective value: -(1/2 <Q, X> + c'x), X stored full symmetric."""
-    return -(0.5 * jnp.sum(Q * X) + jnp.dot(c, x))
+    return -(0.5 * jnp.sum(Q * X) + jnp.dot(c, x, precision=PRECISION))
 
 
 def mccormick_residuals(x, X):

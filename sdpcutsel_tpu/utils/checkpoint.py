@@ -3,8 +3,9 @@
 The cutting-plane loop's full state is (cut pool, PDHG warm-start state,
 bound history, RNG key) — a small pytree.  Snapshots make the loop trivially
 restartable: multi-host failures restart from the last round snapshot (no
-elastic scale-up is needed for this workload).  Format: flax msgpack of the
-numpy-ified pytree plus a JSON sidecar of scalars.
+elastic scale-up is needed for this workload).  Format: one ``np.savez``
+archive of the arrays (keys ``pool.<field>``, ``state.<field>``, ``key``)
+plus a JSON sidecar of the history and metadata.
 """
 
 from __future__ import annotations
@@ -12,20 +13,17 @@ from __future__ import annotations
 import json
 import os
 
-import flax.serialization
-import jax
 import numpy as np
 
 
 def save_checkpoint(path: str, pool, pdhg_state, key, history: list, meta: dict):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    payload = {
-        "pool": jax.tree.map(np.asarray, pool._asdict()),
-        "state": jax.tree.map(np.asarray, pdhg_state._asdict()),
-        "key": np.asarray(key),
-    }
+    arrays = {"key": np.asarray(key)}
+    for prefix, tup in (("pool", pool), ("state", pdhg_state)):
+        for field, a in tup._asdict().items():
+            arrays[f"{prefix}.{field}"] = np.asarray(a)
     with open(path, "wb") as f:
-        f.write(flax.serialization.msgpack_serialize(payload))
+        np.savez(f, **arrays)
     side = {"history": history, "meta": meta}
     with open(path + ".json", "w") as f:
         json.dump(side, f, default=float)
@@ -34,9 +32,15 @@ def save_checkpoint(path: str, pool, pdhg_state, key, history: list, meta: dict)
 def load_checkpoint(path: str):
     """Returns (pool_dict, state_dict, key, history, meta) as numpy pytrees;
     callers rebuild CutPool/PDHGState namedtuples from the dicts."""
-    with open(path, "rb") as f:
-        payload = flax.serialization.msgpack_restore(f.read())
+    pool, state = {}, {}
+    with np.load(path) as z:
+        for name in z.files:
+            prefix, _, field = name.partition(".")
+            if prefix == "pool":
+                pool[field] = z[name]
+            elif prefix == "state":
+                state[field] = z[name]
+        key = z["key"]
     with open(path + ".json") as f:
         side = json.load(f)
-    return (payload["pool"], payload["state"], payload["key"],
-            side["history"], side["meta"])
+    return pool, state, key, side["history"], side["meta"]

@@ -1,7 +1,7 @@
 """Debug mode (SURVEY.md section 5.2).
 
 On-device data races cannot exist (XLA programs are race-free by
-construction), so the TPU-native analogue of the reference-era sanitizers is
+construction), so the analogue here of the reference-era sanitizers is
 numerical: (a) jax's NaN-checking mode, which faults at the first NaN/Inf
 produced inside any jitted computation, and (b) chex assertions validating
 the solver state's shapes and finiteness at round granularity.

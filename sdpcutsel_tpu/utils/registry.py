@@ -1,4 +1,4 @@
-"""Certified-bounds registries (ADVICE r4: the suite drivers' fallback for
+"""Certified-bounds registries (the suite drivers' fallback for
 unregistered instances recomputed a LOOSE, never-persisted denominator).
 
 Two jobs, shared by the suite drivers and the validator scripts:

@@ -39,10 +39,10 @@ def test_loop_bound_monotone_and_dominates_cpu(inst10):
     cpu_bounds = np.asarray([h.bound for h in cpu_hist])
     # round 0 is the plain McCormick bound on both paths
     np.testing.assert_allclose(bounds[0], cpu_bounds[0], rtol=2e-3)
-    # final TPU-loop bound should close a comparable amount of gap
-    drop_tpu = bounds[0] - bounds[-1]
+    # final JAX-loop bound should close a comparable amount of gap
+    drop_jax = bounds[0] - bounds[-1]
     drop_cpu = cpu_bounds[0] - cpu_bounds[-1]
-    assert drop_tpu >= 0.8 * drop_cpu - 1e-3
+    assert drop_jax >= 0.8 * drop_cpu - 1e-3
 
 
 def test_random_strategy_runs(inst10):

@@ -1,6 +1,11 @@
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from sdpcutsel_tpu.models.features import (
     candidate_features, candidate_q_features, feature_dim,
@@ -9,7 +14,8 @@ from sdpcutsel_tpu.models.labels import (
     _mccormick_box, exact_improvement, solve_subproblem_admm,
 )
 from sdpcutsel_tpu.models.scorer import (
-    MLPScorer, init_params, load_params, neural_score_fn, save_params,
+    artifact_path, generic_scores, init_params, load_params, mlp_apply,
+    neural_score_fn, save_params,
 )
 from sdpcutsel_tpu.models.train import sample_subproblems, make_features
 from sdpcutsel_tpu.config import ScorerConfig
@@ -87,7 +93,7 @@ def test_feature_shapes_and_scale_invariance():
 
 def test_scorer_save_load_roundtrip(tmp_path):
     params = init_params(3)
-    p = str(tmp_path / "m.msgpack")
+    p = str(tmp_path / "m.npz")
     save_params(params, p)
     loaded, found = load_params(3, path=p)
     assert found
@@ -145,3 +151,112 @@ def test_neural_score_fn_gates_on_violation():
     # at least one candidate must survive the gate.
     s_viol = fn(x, jnp.zeros((n, n), jnp.float32), jax.random.PRNGKey(0))
     assert bool(jnp.isfinite(s_viol).any())
+
+
+# sha256 over (name, float32 bytes) of each array, in sorted-name order, of
+# the weights as decoded from the flax msgpack artifacts they were converted
+# from (Dense_i kernel -> W{i}, bias -> b{i})
+_MSGPACK_DIGESTS = {
+    2: "78d61d10dd3a6d44ee31fb5af0654cbdcd43b2a3397004c588e8b15e2c78974e",
+    3: "db9a460e00719bcbcfc8e406fe086070b70763c0685c5f71eb020d62ff46c366",
+    4: "723599c579335342af31feb9471a501066f02ce960357c933c2d048bb4af8850",
+    5: "31ccc1ad6681595f31903eba21dc0ee63edaa69eb11562af9c2817dea27f899a",
+}
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
+def test_npz_weights_equal_msgpack_values(k):
+    import hashlib
+
+    with np.load(artifact_path(k)) as z:
+        arrays = {name: z[name] for name in z.files}
+    assert sorted(arrays) == ["W0", "W1", "W2", "b0", "b1", "b2"]
+    assert arrays["W0"].shape == (feature_dim(k), 64)
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        assert arrays[name].dtype == np.float32
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(arrays[name]).tobytes())
+    assert h.hexdigest() == _MSGPACK_DIGESTS[k]
+
+
+def _numpy_scores(Q, x, X, table, params):
+    """f64 numpy reference: features (models/features.py layout), MLP with
+    ReLU, and -lambda_min(Z(rho)) by LAPACK eigvalsh."""
+    Q, x, X = (np.asarray(a, np.float64) for a in (Q, x, X))
+    k = table.shape[1]
+    i0, i1 = np.triu_indices(k)
+    Qr = Q[table[:, :, None], table[:, None, :]]
+    scale = np.abs(Qr).max(axis=(1, 2))
+    xr = x[table]
+    Xr = X[table[:, :, None], table[:, None, :]]
+    feats = np.concatenate([(Qr / np.maximum(scale, 1e-12)[:, None, None])
+                            [:, i0, i1], xr, Xr[:, i0, i1]], axis=1)
+    h = feats
+    L = len(params) // 2
+    for i in range(L):
+        h = h @ np.asarray(params[f"W{i}"], np.float64) \
+            + np.asarray(params[f"b{i}"], np.float64)
+        if i < L - 1:
+            h = np.maximum(h, 0.0)
+    nn = scale * np.maximum(h[:, 0], 0.0)
+    Z = np.empty((table.shape[0], k + 1, k + 1))
+    Z[:, 0, 0] = 1.0
+    Z[:, 0, 1:] = xr
+    Z[:, 1:, 0] = xr
+    Z[:, 1:, 1:] = Xr
+    feas = -np.linalg.eigvalsh(Z)[:, 0]
+    return nn, feas
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
+def test_generic_scores_match_numpy(k):
+    """The plain generic (nn, feas) scorer — the path QCQP and the sharded
+    round take for every k — against f64 numpy: MLP at Precision.HIGHEST
+    agrees to f32 rounding; the 6-sweep Jacobi lambda_min to 1e-5."""
+    n = 14
+    rng = np.random.default_rng(k)
+    Q = rng.standard_normal((n, n))
+    Q = 0.5 * (Q + Q.T)
+    x = rng.random(n)
+    X = np.clip(np.outer(x, x) + 0.3 * rng.standard_normal((n, n)), 0, 1)
+    X = 0.5 * (X + X.T)
+    table = combinations_table(n, k)[:600].copy()
+    if k >= 4:
+        # QCQP-style padded supports: repeat the last index in some rows
+        table[::7, -1] = table[::7, -2]
+    params, found = load_params(k)
+    assert found
+    Qj, xj, Xj = (jnp.asarray(a, jnp.float32) for a in (Q, x, X))
+    tj = jnp.asarray(table)
+    triQ, scale = candidate_q_features(Qj, tj)
+    nn, feas = jax.jit(generic_scores)(xj, Xj, tj, triQ, scale, params)
+    nn_ref, feas_ref = _numpy_scores(Q, x, X, table, params)
+    np.testing.assert_allclose(np.asarray(nn), nn_ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(nn_ref).max())
+    np.testing.assert_allclose(np.asarray(feas), feas_ref, atol=1e-5)
+
+
+def test_neural_solve_imports_no_flax():
+    """A neural solve needs neither flax nor msgpack: weights are .npz and
+    the MLP is plain jnp."""
+    code = (
+        "import sys\n"
+        "from sdpcutsel_tpu.config import CutConfig, LPConfig, RunConfig, "
+        "ScorerConfig\n"
+        "from sdpcutsel_tpu.instances import generate_spar\n"
+        "from sdpcutsel_tpu.loop import CutSolver\n"
+        "cfg = RunConfig(lp=LPConfig(max_iters=500), cuts=CutConfig(k=3, "
+        "sel_size=4, capacity=32), scorer=ScorerConfig(strategy='neural'))\n"
+        "h = CutSolver(generate_spar(10, 100, 1), cfg).run(rounds=1)\n"
+        "assert len(h) == 1\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('flax', 'msgpack'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("ok")

@@ -135,3 +135,58 @@ def test_vertex_steering_stays_optimal_and_sharpens():
     xs = np.asarray(sx)
     assert ((xs[3:] < 0.05) | (xs[3:] > 0.95)).all()
     assert (xs[:3] > 0.95).all()
+
+
+def _dot_precisions(fn, *args):
+    import jax
+
+    jaxpr = jax.make_jaxpr(fn)(*args)
+    out = []
+
+    def walk(jp):
+        for eqn in jp.eqns:
+            if eqn.primitive.name == "dot_general":
+                out.append(eqn.params["precision"])
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
+
+    walk(jaxpr.jaxpr)
+    return out
+
+
+def test_lp_operator_products_use_highest_precision():
+    """Every f32 product of the LP operator — the one-hot support-embedding
+    products of the cut block and the dense QCQP rows — asks for
+    Precision.HIGHEST, so no backend runs them in TF32 or bf16."""
+    import jax
+
+    from sdpcutsel_tpu.relax.cutbuffer import (
+        append_cuts, cut_adjoint_emb, cut_residuals_emb, empty_pool,
+        support_embedding,
+    )
+    from sdpcutsel_tpu.relax.denserows import (
+        DenseRows, dense_adjoint, dense_residuals,
+    )
+
+    n, M, k, m = 9, 16, 3, 2
+    rng = np.random.default_rng(0)
+    pool = append_cuts(
+        empty_pool(M, k),
+        jnp.asarray(rng.integers(0, n, (4, k)), jnp.int32),
+        jnp.asarray(rng.standard_normal((4, k)), jnp.float32),
+        jnp.asarray(rng.standard_normal((4, k, k)), jnp.float32),
+        jnp.zeros((4,)), jnp.ones((4,)))
+    E3 = support_embedding(pool, n)
+    x = jnp.asarray(rng.random(n), jnp.float32)
+    X = jnp.asarray(rng.random((n, n)), jnp.float32)
+    dense = DenseRows(G=jnp.ones((m, n, n)), g=jnp.ones((m, n)),
+                      h=jnp.ones((m,)))
+    yC = jnp.ones((M,))
+    precs = (
+        _dot_precisions(lambda x, X: cut_residuals_emb(x, X, pool, E3), x, X)
+        + _dot_precisions(lambda y: cut_adjoint_emb(y, pool, E3), yC)
+        + _dot_precisions(lambda x, X: dense_residuals(x, X, dense), x, X)
+        + _dot_precisions(lambda y: dense_adjoint(y, dense), jnp.ones((m,))))
+    assert len(precs) == 8
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p == (highest, highest) for p in precs), precs

@@ -1,5 +1,5 @@
 """QCQP CPU replica (baseline/cpu_reference_qcqp.py) and its parity with the
-TPU-build CutSolverQCQP — the sparse-path analogue of test_loop.py's
+JAX-build CutSolverQCQP — the sparse-path analogue of test_loop.py's
 replica-dominance checks (SURVEY.md sections 0.7, 6)."""
 
 import numpy as np
@@ -25,7 +25,7 @@ def test_replica_monotone_and_cuts():
     assert rate > 0
 
 
-def test_tpu_build_matches_replica():
+def test_jax_build_matches_replica():
     inst = load_or_generate_qcqp(NAME)
     hist, _ = cpu_cut_select_qcqp(inst, k=K, sel_size=SEL, rounds=ROUNDS)
     rep = [h.bound for h in hist]
@@ -37,15 +37,15 @@ def test_tpu_build_matches_replica():
         loop=LoopConfig(rounds=ROUNDS, polish_iters=60000),
     )
     out = CutSolverQCQP(inst, cfg).run(ROUNDS)
-    tpu = [h.bound for h in out]
+    got = [h.bound for h in out]
 
     # identical relaxation: round-0 bound is the same McCormick+constraints LP
-    assert abs(tpu[0] - rep[0]) / (1.0 + abs(rep[0])) < 1e-3
+    assert abs(got[0] - rep[0]) / (1.0 + abs(rep[0])) < 1e-3
     # >=95% of the replica's bound improvement (north-star parity bar)
     rep_impr = rep[0] - rep[-1]
-    tpu_impr = tpu[0] - tpu[-1]
+    jax_impr = got[0] - got[-1]
     assert rep_impr > 0
-    assert tpu_impr >= 0.95 * rep_impr
+    assert jax_impr >= 0.95 * rep_impr
 
 
 def test_constraint_rows_bind():

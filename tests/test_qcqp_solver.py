@@ -48,7 +48,7 @@ def test_qcqp_loop_improves(inst):
 
 def test_qcqp_triangle_strategy():
     """Triangle (RLT-3) baseline runs on the QCQP clique candidates (k=3)
-    and keeps the certified bound monotone (VERDICT round-1 item 7)."""
+    and keeps the certified bound monotone."""
     from sdpcutsel_tpu.instances.qcqp import generate_qcqp
 
     inst3 = generate_qcqp(12, 40, 2, 2)

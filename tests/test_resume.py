@@ -41,7 +41,7 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 def test_qcqp_resume_matches_uninterrupted(tmp_path):
     """QCQP solver has the same round-granular checkpoint/resume as BoxQP
-    (VERDICT round-1 item 7): resumed run == uninterrupted run."""
+   : resumed run == uninterrupted run."""
     from sdpcutsel_tpu.instances.qcqp import generate_qcqp
     from sdpcutsel_tpu.qcqp.solver import CutSolverQCQP
 
@@ -72,7 +72,7 @@ def test_qcqp_resume_matches_uninterrupted(tmp_path):
 
 
 def test_qcqp_resume_preserves_cooldown(tmp_path):
-    """ADVICE r4 #3: the cross-round selection cooldown must survive a
+    """The cross-round selection cooldown must survive a
     checkpoint-resume, or the resumed run silently diverges from a
     continuous one at the default sel_cooldown."""
     from sdpcutsel_tpu.instances.qcqp import generate_qcqp

@@ -1,6 +1,6 @@
 """Sharded instance-batched PRODUCTION round step on the 8-device virtual mesh.
 
-Covers VERDICT round-1 item 1: the sharded step must run the same machinery
+The sharded step must run the same machinery
 as the single-chip loop — neural scorer, restarted PDHG, purge, certified
 dual bounds — with mesh-layout-independent selection.
 """
@@ -179,38 +179,10 @@ def test_sharded_diverse_selection_runs_and_layout_invariant():
                                np.asarray(s_div2.best_bound), rtol=2e-5)
 
 
-def test_pair_layout_sharded_matches_generic():
-    """The pair-structured sharded scorer (shard_pair_candidates +
-    pair_layout=True) produces the same certified bounds as the generic
-    table path — identical score values, only candidate order differs."""
-    from sdpcutsel_tpu.parallel.sharding import shard_pair_candidates
-
-    n, B = 12, 2
-    mesh = make_mesh(data=2, cand=4)
-    Qb, cb = _batch(n, B)
-
-    def run(pair):
-        state = init_batched_state(Qb, cb, capacity=64, kmax=3)
-        state = shard_batched_state(state, mesh)
-        if pair:
-            table, valid = shard_pair_candidates(n, mesh, block=128)
-        else:
-            table, valid = shard_candidates(combinations_table(n, 3), mesh)
-        step = make_sharded_round_step(mesh, lp_iters=400, sel_size=4,
-                                       strategy="neural", pair_layout=pair)
-        for _ in range(3):
-            state, _ = step(state, table, valid)
-        return certify_batched_f64(state)
-
-    b_gen = run(False)
-    b_pair = run(True)
-    np.testing.assert_allclose(b_pair, b_gen, rtol=2e-3, atol=2e-3)
-
-
 def test_scan_step_matches_per_round_steps():
     """make_sharded_scan_step (all rounds in one dispatch) reproduces the
     step-per-dispatch path: same pools, same per-round certified f64 bounds
-    (VERDICT r3 next #4)."""
+   ."""
     from sdpcutsel_tpu.parallel.round import (
         certify_scan_f64, make_sharded_scan_step,
     )

@@ -1,4 +1,4 @@
-"""SDP-bound denominator validation (VERDICT round-1 item 6): the eigencut
+"""SDP-bound denominator validation: the eigencut
 upper bound is sandwiched by an independent f64 feasible-point lower bound."""
 
 import numpy as np

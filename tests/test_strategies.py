@@ -36,9 +36,9 @@ def test_unknown_strategy_raises():
         CutSolver(inst, cfg)
 
 
-def test_replica_diverse_select_matches_tpu_diverse_topk():
+def test_replica_diverse_select_matches_jax_diverse_topk():
     """baseline/cpu_reference._diverse_select is the numpy twin of
-    ops/topk.diverse_topk (VERDICT r4 #7): same scores + table -> same
+    ops/topk.diverse_topk: same scores + table -> same
     selected candidates in the same order."""
     import numpy as np
 
@@ -57,6 +57,6 @@ def test_replica_diverse_select_matches_tpu_diverse_topk():
 
     import jax.numpy as jnp
 
-    _, sel_tpu, valid = diverse_topk(
+    _, sel_jax, valid = diverse_topk(
         jnp.asarray(scores, jnp.float32), jnp.asarray(table), sel, n, alpha)
-    np.testing.assert_array_equal(sel_cpu, np.asarray(sel_tpu)[np.asarray(valid)])
+    np.testing.assert_array_equal(sel_cpu, np.asarray(sel_jax)[np.asarray(valid)])

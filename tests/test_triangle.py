@@ -99,7 +99,7 @@ def test_triangle_strategy_end_to_end():
     assert all(b2 <= b1 + 1e-9 for b1, b2 in zip(bounds, bounds[1:]))
 
 
-def test_triangle_replica_matches_tpu_rule():
+def test_triangle_replica_matches_jax_rule():
     """The CPU replica's new triangle branch and cuts/triangle.py implement
     the same rows and the same violation scores.  Trajectories are compared
     at a COMMON LP point: at an LP optimum the top violations are massively

@@ -19,7 +19,7 @@ def test_checkpoint_roundtrip(tmp_path):
     st = init_state(5, 8)
     key = jax.random.PRNGKey(7)
     hist = [{"round": 0, "bound": 12.5}]
-    path = str(tmp_path / "ck.msgpack")
+    path = str(tmp_path / "ck.npz")
     save_checkpoint(path, pool, st, key, hist, {"instance": "x"})
 
     pd, sd, k2, h2, meta = load_checkpoint(path)
@@ -120,3 +120,33 @@ def test_config_apply_overrides():
         apply_overrides(RunConfig(), ["lp.tol"])
     with pytest.raises(AttributeError):
         apply_overrides(RunConfig(), ["lp.nonexistent=1"])
+
+
+def test_compile_cache_helper_keeps_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the helper returns it and sets no
+    other directory (JAX reads the variable itself)."""
+    from sdpcutsel_tpu.utils import compile_cache
+
+    calls = []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    assert calls == []
+
+
+def test_compile_cache_helper_defaults_to_checkout(monkeypatch):
+    """Unset, the cache is the fixed .jax_cache directory of the checkout,
+    which .gitignore lists."""
+    from sdpcutsel_tpu.utils import compile_cache
+
+    calls = []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    assert compile_cache.enable_compile_cache() == want
+    assert calls == [("jax_compilation_cache_dir", want)]
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
